@@ -14,12 +14,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, ".")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -32,10 +33,6 @@ def main():
     ap.add_argument("--frames", type=int, default=50)
     ap.add_argument("--points", type=int, default=2000)
     ap.add_argument("--noise-px", type=float, default=0.5)
-    ap.add_argument("--cache-dir", type=str, default=None,
-                    help="persistent compilation cache directory (default "
-                         "~/.cache/pysfm_tpu); pass a fresh dir to measure "
-                         "the cold-first-process cost")
     ap.add_argument("--no-cache", action="store_true",
                     help="disable the persistent compilation cache")
     args = ap.parse_args()
@@ -44,7 +41,7 @@ def main():
     if not args.no_cache:
         from pysfm_tpu.utils import enable_compilation_cache
 
-        cache = enable_compilation_cache(args.cache_dir)
+        cache = enable_compilation_cache()
 
     sc = synthetic.make_scene(
         args.frames, args.points, noise_px=args.noise_px, visibility=0.35,

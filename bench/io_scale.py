@@ -1,9 +1,8 @@
-"""At-scale I/O loop artifact (VERDICT r3 missing #5/#6): BAL text file ->
-C++ tokenizer -> CM layout -> grouped-kernel solve -> mid-solve CM
-checkpoint -> resume -> equality.
+"""At-scale I/O loop: BAL text file -> C++ tokenizer -> CM layout -> PCG
+solve -> mid-solve CM checkpoint -> resume -> equality.
 
-Writes IO_SCALE_r{N}.json with the timings and the resumed-vs-straight
-cost curves.
+Prints one JSON line with the timings and the resumed-vs-straight cost
+comparison (``--out`` also writes it to a file).
 
 Run:  python bench/io_scale.py [--cams 428] [--points 125000]
 """
@@ -20,11 +19,7 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, ".")
-
-_plat = os.environ.get("JAX_PLATFORMS", "")
-if _plat and "cpu" not in _plat.split(","):
-    os.environ["JAX_PLATFORMS"] = _plat + ",cpu"
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():
@@ -36,7 +31,7 @@ def main():
     from pysfm_tpu.io.native import have_native
     from pysfm_tpu.pipeline import synthetic
     from pysfm_tpu.solver import LMConfig
-    from pysfm_tpu.solver.lm import make_grouped_ops, solve_segmented
+    from pysfm_tpu.solver.lm import solve, solve_segmented
     from pysfm_tpu.utils.timing import sync
 
     ap = argparse.ArgumentParser()
@@ -69,27 +64,20 @@ def main():
     )
     t_load = time.perf_counter() - t0
 
-    # 3. Grouped-kernel solve, straight through.
-    t0 = time.perf_counter()
-    gops = make_grouped_ops(cmp)
-    t_gops = time.perf_counter() - t0
+    # 3. PCG solve, straight through.
     cfg = LMConfig(
         max_iters=args.iters, tol_grad=0.0, tol_cost_rel=0.0, tol_step=0.0,
         solver="pcg", cg_iters=args.cg_iters, cg_tol=1e-2,
     )
     t0 = time.perf_counter()
-    p_full, st_full = solve_segmented(
-        cmp, cfg, iters_per_dispatch=6, gops=gops
-    )
+    p_full, st_full = solve_segmented(cmp, cfg, iters_per_dispatch=6)
     sync(p_full.X3)
     t_solve = time.perf_counter() - t0
 
     # 4. Half solve -> checkpoint -> load -> resume; tail must match.
     half = args.iters // 2
     cfg_half = dataclasses.replace(cfg, max_iters=half)
-    p_half, st_half = solve_segmented(
-        cmp, cfg_half, iters_per_dispatch=6, gops=gops
-    )
+    p_half, st_half = solve_segmented(cmp, cfg_half, iters_per_dispatch=6)
     ck_path = os.path.join(tmpdir, "ckpt.npz")
     t0 = time.perf_counter()
     save_checkpoint_cm(
@@ -101,12 +89,7 @@ def main():
     t0 = time.perf_counter()
     cmp_r, lam_r, nu_r, it_r = load_checkpoint_cm(ck_path)
     t_restore = time.perf_counter() - t0
-    gops_r = make_grouped_ops(cmp_r)
-    from pysfm_tpu.solver.lm import solve
-
-    p_res, st_res = solve(
-        cmp_r, cfg_half, lam_init=lam_r, nu_init=nu_r, gops=gops_r
-    )
+    p_res, st_res = solve(cmp_r, cfg_half, lam_init=lam_r, nu_init=nu_r)
     c_full = np.asarray(st_full.costs, np.float64)
     c_res = np.asarray(st_res.costs, np.float64)
     tail = c_full[half + 1:]
@@ -116,7 +99,7 @@ def main():
 
     out = {
         "config": "io_scale",
-        "device": str(dev),
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
         "cams": cmp.n_cameras,
         "points": cmp.n_points,
         "observations": cmp.n_obs,
@@ -124,7 +107,6 @@ def main():
         "bal_file_mb": round(size_mb, 1),
         "save_bal_s": round(t_save, 2),
         "load_bal_cm_s": round(t_load, 2),
-        "grouped_build_s": round(t_gops, 2),
         "solve_s": round(t_solve, 2),
         "checkpoint_save_s": round(t_ckpt, 2),
         "checkpoint_load_s": round(t_restore, 2),

@@ -1,4 +1,4 @@
-"""pysfm_tpu — a TPU-native structure-from-motion framework.
+"""pysfm_tpu — an accelerator-native structure-from-motion framework in JAX.
 
 A from-scratch, array-first re-design of the capability surface of
 ``alexflint/pysfm`` (see SURVEY.md; the reference mount was empty at build

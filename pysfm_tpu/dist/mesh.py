@@ -1,9 +1,9 @@
 """Device mesh construction (SURVEY §2 "Communication backend").
 
 The framework's entire communication backend is jax/XLA collectives over an
-explicit :class:`jax.sharding.Mesh` — ``psum``/``pmax`` ride ICI within a
-slice and DCN across hosts on a multi-host mesh; there is no hand-written
-transport (SURVEY §5 "Distributed communication backend").
+explicit :class:`jax.sharding.Mesh` — ``psum``/``pmax`` become NCCL
+collectives over NVLink within a host and over the network across hosts on
+a multi-host mesh; there is no hand-written transport (SURVEY §5 "Distributed communication backend").
 """
 
 from __future__ import annotations
@@ -24,8 +24,8 @@ def make_mesh(
     """1-D mesh over ``n_devices`` (default: all local devices).
 
     Multi-host use: call ``jax.distributed.initialize()`` first (one process
-    per host); ``jax.devices()`` then spans the pod slice and the same mesh
-    covers ICI+DCN.
+    per host); ``jax.devices()`` then spans every host's devices and the
+    same mesh covers them all.
     """
     if devices is None:
         devices = jax.devices()

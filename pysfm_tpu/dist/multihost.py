@@ -4,10 +4,9 @@ hosts", §5 "Distributed communication backend").
 The framework's cross-host story is deliberately thin: one process per
 host, ``jax.distributed.initialize`` to form the PJRT global runtime, and
 then the SAME 1-D point-shard mesh (:func:`pysfm_tpu.dist.make_mesh`)
-spanning every chip in the pod slice — XLA routes the per-iteration psum
-over ICI within a host's chips and DCN across hosts.  No transport code
-lives in this framework (BASELINE north-star: "Schur reduction over
-ICI/DCN" with jax collectives as the entire backend).
+spanning every device of every host — XLA routes the per-iteration psum
+over NVLink within a host and over the network across hosts.  No transport
+code lives in this framework (jax collectives are the entire backend).
 
 Host-sharded data loading: each host materializes only its own point
 shards (``shard_problem`` is deterministic, so hosts agree on the global
@@ -36,9 +35,10 @@ def initialize(
 ) -> None:
     """Join the multi-host runtime (idempotent).
 
-    With no arguments, defers to the environment (TPU pod metadata or
+    With no arguments, defers to the environment (a cluster jax detects by
+    itself, such as SLURM, or
     ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``),
-    which is how pod launchers invoke one process per host.
+    which is how cluster launchers invoke one process per host.
     """
     # NB: probing with jax.process_count() would itself initialize the XLA
     # backend, after which jax.distributed.initialize() refuses to run.
@@ -61,14 +61,14 @@ def initialize(
     supplied = {k: v for k, v in given.items() if v is not None}
     if not supplied:
         # Nothing configured anywhere: explicit single-process run, or a
-        # TPU pod whose metadata jax discovers by itself.
+        # cluster whose environment jax discovers by itself.
         try:
             jax.distributed.initialize()
         except (ValueError, RuntimeError):
-            return  # no pod metadata — stay a local single process
+            return  # no cluster environment — stay a local single process
         return
     if len(supplied) != len(given):
-        # A PARTIAL configuration is a misconfigured pod launch; silently
+        # A PARTIAL configuration is a misconfigured launch; silently
         # degrading to a single-process run would corrupt the reduction
         # (each host would solve its own shard as if it were the world) —
         # fail loudly instead (SURVEY §5 "failure detection").
@@ -83,7 +83,7 @@ def initialize(
 
 
 def global_mesh() -> Mesh:
-    """1-D mesh over every addressable chip in the pod slice (call after
+    """1-D mesh over every device of every host (call after
     :func:`initialize`)."""
     return Mesh(np.asarray(jax.devices()), (AXIS,))
 
@@ -119,17 +119,17 @@ def _putters(mesh: Mesh):
     return put_sharded, put_repl
 
 
-def shard_cm_problem_multihost(cmp, mesh: Mesh, with_grouped: bool = True):
+def shard_cm_problem_multihost(cmp, mesh: Mesh):
     """Build the globally point-sharded COMPONENT-MAJOR problem (the
     BAL-scale flagship layout) across hosts: the same deterministic
     global partition as :func:`pysfm_tpu.dist.sharded_cm.shard_cm_problem`
-    over all chips in the pod slice, assembled from per-host buffers.
-    Returns ``(ShardedCMProblem, sharded GroupedOps | None)`` ready for
+    over all devices of the mesh, assembled from per-host buffers.
+    Returns a ``ShardedCMProblem`` ready for
     :func:`pysfm_tpu.dist.solve_sharded_cm` on ``mesh``."""
     from pysfm_tpu.dist.sharded_cm import shard_cm_problem
 
     n = mesh.devices.size
-    scm, sgops = shard_cm_problem(cmp, n, with_grouped=with_grouped)
+    scm = shard_cm_problem(cmp, n)
     put_sharded, put_repl = _putters(mesh)
     scm = scm.replace(
         R=put_repl(scm.R), t=put_repl(scm.t), intr=put_repl(scm.intr),
@@ -144,9 +144,7 @@ def shard_cm_problem_multihost(cmp, mesh: Mesh, with_grouped: bool = True):
         cam_obs=put_sharded(scm.cam_obs),
         cam_obs_mask=put_sharded(scm.cam_obs_mask),
     )
-    if sgops is not None:
-        sgops = jax.tree_util.tree_map(put_sharded, sgops)
-    return scm, sgops
+    return scm
 
 
 def shard_problem_multihost(p: BundleProblem, mesh: Mesh) -> ShardedProblem:

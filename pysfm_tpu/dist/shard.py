@@ -6,7 +6,7 @@ Layout (SURVEY §2 parallelism inventory):
   contiguous block of points and *all* observations of those points, with
   point ids relocalized to the chip ("point blocks eliminated chip-locally").
 - **Cameras are replicated**: every chip sees the full camera arrays; the
-  camera-sized reduced system is psum'd over ICI (SURVEY §5 long-context
+  camera-sized reduced system is psum'd across the mesh (SURVEY §5 long-context
   analog — ship the small operand, keep the big one resident).
 
 Padding makes every per-chip array the same (static) shape: padded points
@@ -21,11 +21,11 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from pysfm_tpu.dist.mesh import AXIS
 from pysfm_tpu.problem import BundleProblem
+from pysfm_tpu.utils import struct
 
 
 @struct.dataclass
@@ -51,8 +51,8 @@ class ShardedProblem:
     pt_obs_mask: jnp.ndarray  # [n, Pl, K] bool
     # Per-shard padded camera-observation tables (local obs indices) — the
     # scatter-free camera-side reduction for the PCG path (solver/pcg.py):
-    # each chip reduces its own observations per camera; partials psum over
-    # ICI.  Kc is the max per-(camera, shard) observation count.
+    # each chip reduces its own observations per camera; partials psum
+    # across the mesh.  Kc is the max per-(camera, shard) observation count.
     cam_obs: jnp.ndarray       # [n, C, Kc]
     cam_obs_mask: jnp.ndarray  # [n, C, Kc] bool
     robust_scale: jnp.ndarray

@@ -1,18 +1,17 @@
-"""Distributed flagship solver: the component-major / grouped-kernel LM
-loop under ``shard_map`` (BASELINE config 5).
+"""Distributed flagship solver: the component-major PCG LM loop under
+``shard_map`` (BASELINE config 5).
 
-This brings the single-chip Venice path (problem/cm.py + problem/grouped.py
-+ solver/kernels/pallas_spmv.py + solver/pcg.py) to a device mesh with the
-same partitioning contract as :mod:`pysfm_tpu.dist.sharded_lm`:
+This brings the single-chip Venice path (problem/cm.py + solver/scale.py
++ solver/pcg.py) to a device mesh with the same partitioning contract as
+:mod:`pysfm_tpu.dist.sharded_lm`:
 
-- **Points, observations, and the grouped kernel stream are sharded**:
-  chip ``k`` owns a contiguous block of points, all observations of those
-  points (observations are point-sorted, so each shard is a contiguous
-  slice), and its own grouped layout built over the local shard.  All
-  shards are padded to one static block count (``pad_to_blocks``) so the
-  kernels compile once for every chip.
+- **Points and observations are sharded**: chip ``k`` owns a contiguous
+  block of points and all observations of those points (observations are
+  point-sorted, so each shard is a contiguous slice), with its own
+  visibility tables.  All shards are padded to one static shape so the
+  program compiles once for every chip.
 - **Cameras are replicated**; the camera-sized partials (Hcc, g_c, the CG
-  matvec result, the block-Jacobi diagonal) psum over ICI — the plumbing
+  matvec result, the block-Jacobi diagonal) psum across the mesh — the plumbing
   already inside :func:`pysfm_tpu.solver.pcg.build_pcg_system` /
   :func:`schur_matvec` via ``axis_name``.
 - The LM control flow is :func:`pysfm_tpu.solver.lm.cm_lm_loop` — the SAME
@@ -31,21 +30,19 @@ analog: none — the reference is single-process NumPy (SURVEY §0/§2).
 from __future__ import annotations
 
 from functools import partial
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from pysfm_tpu.dist.mesh import AXIS
 from pysfm_tpu.problem import cm as cm_mod
-from pysfm_tpu.problem import grouped as grouped_mod
-from pysfm_tpu.solver.kernels import pallas_spmv
 from pysfm_tpu.solver.lm import LMStats, cm_lm_loop
 from pysfm_tpu.utils.config import LMConfig
+from pysfm_tpu.utils import struct
 
 
 @struct.dataclass
@@ -89,19 +86,12 @@ class ShardedCMProblem:
         return self.X3.shape[0] * self.X3.shape[2]
 
 
-def shard_cm_problem(
-    cmp: cm_mod.CMProblem,
-    n_shards: int,
-    with_grouped: bool = True,
-    superstep: int = 4,
-) -> Tuple[ShardedCMProblem, Optional[pallas_spmv.GroupedOps]]:
+def shard_cm_problem(cmp: cm_mod.CMProblem, n_shards: int) -> ShardedCMProblem:
     """Partition a CMProblem into ``n_shards`` point blocks (host-side).
 
-    Returns ``(sharded_problem, sharded_gops)`` where ``sharded_gops`` is a
-    :class:`~pysfm_tpu.solver.kernels.pallas_spmv.GroupedOps` whose arrays
-    carry a leading shard axis (all shards padded to one static block
-    count) — or ``None`` with ``with_grouped=False`` (the XLA-table path).
-    """
+    The sharded fields stay NumPy arrays with a leading shard axis, so
+    :func:`device_put_sharded_cm` moves each shard straight to its own
+    device."""
     P_, C = cmp.n_points, cmp.n_cameras
     obs_pt = np.asarray(cmp.obs_pt)
     obs_cam = np.asarray(cmp.obs_cam)
@@ -167,71 +157,23 @@ def shard_cm_problem(
         cam_obs[k, :, : ctabs[k].shape[1]] = ctabs[k]
         cam_obs_mask[k, :, : cmsks[k].shape[1]] = cmsks[k]
 
-    scm = ShardedCMProblem(
+    return ShardedCMProblem(
         R=cmp.R, t=cmp.t, intr=cmp.intr, cam_fixed=cmp.cam_fixed,
         robust_scale=cmp.robust_scale,
-        X3=jnp.asarray(X3s), pt_mask=jnp.asarray(pt_mask),
-        obs_cam=jnp.asarray(oc_s), obs_pt=jnp.asarray(op_s),
-        u=jnp.asarray(u_s), v=jnp.asarray(v_s), obs_w=jnp.asarray(w_s),
-        pt_obsT=jnp.asarray(pt_obsT),
-        pt_obs_maskT=jnp.asarray(pt_obs_maskT),
-        cam_obs=jnp.asarray(cam_obs), cam_obs_mask=jnp.asarray(cam_obs_mask),
+        X3=X3s, pt_mask=pt_mask,
+        obs_cam=oc_s, obs_pt=op_s, u=u_s, v=v_s, obs_w=w_s,
+        pt_obsT=pt_obsT, pt_obs_maskT=pt_obs_maskT,
+        cam_obs=cam_obs, cam_obs_mask=cam_obs_mask,
         camera_model=cmp.camera_model, robust=cmp.robust,
     )
-    if not with_grouped:
-        return scm, None
-
-    # Grouped layout per shard, padded to one static block count.
-    metas = []
-    for k in range(n_shards):
-        n_real = int(ends[k] - starts[k])
-        metas.append(
-            grouped_mod.build_grouped(
-                oc_s[k, :n_real], op_s[k, :n_real], C, pl
-            )
-        )
-    nb_max = max(m.block_group.shape[0] for m in metas)
-    if superstep > 1:
-        # Two-phase kernels need NB % superstep == 0 (uniform across
-        # shards anyway — all shards pad to nb_max).
-        nb_max = -(-nb_max // superstep) * superstep
-    cp = cmp.cam_dof
-    per_shard = []
-    for k in range(n_shards):
-        meta = metas[k]
-        if meta.block_group.shape[0] < nb_max:
-            meta = grouped_mod._append_pad_blocks(meta, nb_max)
-        n_real = int(ends[k] - starts[k])
-        b0 = jnp.zeros(
-            (3 * cp, nb_max, grouped_mod.BLK // 128, 128), jnp.float32
-        )
-        per_shard.append(
-            pallas_spmv.device_grouped(
-                meta, b0,
-                u=u_s[k, :n_real], v=v_s[k, :n_real], w=w_s[k, :n_real],
-            )
-        )
-    # max_run / superstep are STATIC fields (part of the pytree
-    # structure): unify them across shards so the stacked tree has one
-    # treedef and every chip compiles the same schedule.
-    mr = max(g.max_run for g in per_shard)
-    per_shard = [
-        g.replace(max_run=mr, superstep=superstep) for g in per_shard
-    ]
-    sgops = jax.tree_util.tree_map(
-        lambda *xs: jnp.stack(xs, axis=0), *per_shard
-    )
-    return scm, sgops
 
 
-def device_put_sharded_cm(
-    scm: ShardedCMProblem, sgops, mesh
-) -> Tuple[ShardedCMProblem, object]:
+def device_put_sharded_cm(scm: ShardedCMProblem, mesh) -> ShardedCMProblem:
     """Place the sharded fields on the mesh (leading axis over AXIS) and
     replicate the camera state."""
     shard = NamedSharding(mesh, P(AXIS))
     repl = NamedSharding(mesh, P())
-    scm = scm.replace(
+    return scm.replace(
         R=jax.device_put(scm.R, repl), t=jax.device_put(scm.t, repl),
         intr=jax.device_put(scm.intr, repl),
         cam_fixed=jax.device_put(scm.cam_fixed, repl),
@@ -247,11 +189,6 @@ def device_put_sharded_cm(
         cam_obs=jax.device_put(scm.cam_obs, shard),
         cam_obs_mask=jax.device_put(scm.cam_obs_mask, shard),
     )
-    if sgops is not None:
-        sgops = jax.tree_util.tree_map(
-            lambda x: jax.device_put(x, shard), sgops
-        )
-    return scm, sgops
 
 
 def _strip(x):
@@ -259,7 +196,7 @@ def _strip(x):
 
 
 # Jitted shard_map callables cached per (mesh, config, model, robust,
-# gops-structure): rebuilding jax.jit(run) per call would discard the
+# cam_axis): rebuilding jax.jit(run) per call would discard the
 # compile cache and recompile the whole distributed solve every
 # invocation (measured 7x on repeated solves).
 _FN_CACHE: dict = {}
@@ -267,7 +204,6 @@ _FN_CACHE: dict = {}
 
 def solve_sharded_cm(
     scm: ShardedCMProblem,
-    sgops,
     mesh,
     config: LMConfig = LMConfig(solver="pcg"),
     lam_init=None,
@@ -276,29 +212,19 @@ def solve_sharded_cm(
 ) -> Tuple[ShardedCMProblem, LMStats]:
     """Distributed CM LM solve on ``mesh``.
 
-    ``sgops`` routes the CG matvecs + normal-equation build through the
-    grouped Pallas kernels (the flagship path); ``sgops=None`` runs the
-    obs-chunked XLA build with table matvecs (dtype-preserving — used for
-    f64 equality tests).
-
     ``cam_axis=True`` additionally partitions the camera axis of the
     reduced solve over the same mesh axis (points AND cameras sharded:
     chip k owns point block k and camera slice k — see
-    :class:`pysfm_tpu.solver.pcg.CamShard` and ``MEMMODEL_r05.json`` for
-    the per-chip memory model)."""
+    :class:`pysfm_tpu.solver.pcg.CamShard`)."""
     dtype = scm.X3.dtype
     lam0 = jnp.asarray(
         config.lam0 if lam_init is None else lam_init, dtype
     )
     nu0 = jnp.asarray(2.0 if nu_init is None else nu_init, dtype)
-    key = (
-        mesh, config, scm.camera_model, scm.robust, cam_axis,
-        None if sgops is None else (sgops.max_run, sgops.superstep),
-    )
+    key = (mesh, config, scm.camera_model, scm.robust, cam_axis)
     cached = _FN_CACHE.get(key)
     if cached is not None:
-        args = (scm, lam0, nu0) if sgops is None else (scm, lam0, nu0, sgops)
-        return cached(*args)
+        return cached(scm, lam0, nu0)
     repl = ShardedCMProblem(
         R=P(), t=P(), intr=P(), cam_fixed=P(), robust_scale=P(),
         X3=P(AXIS), pt_mask=P(AXIS),
@@ -308,30 +234,18 @@ def solve_sharded_cm(
         cam_obs=P(AXIS), cam_obs_mask=P(AXIS),
         camera_model=scm.camera_model, robust=scm.robust,
     )
-    gops_spec = (
-        None
-        if sgops is None
-        else jax.tree_util.tree_map(lambda _: P(AXIS), sgops)
-    )
     stats_spec = LMStats(
         costs=P(), lams=P(), accepted=P(), grad_inf=P(), step_norms=P(),
         n_iters=P(), lam_next=P(), nu_next=P(), cg_iters=P(), dc_next=P(),
     )
-    in_specs = (
-        (repl, P(), P())
-        if sgops is None
-        else (repl, P(), P(), gops_spec)
-    )
+    in_specs = (repl, P(), P())
     out_specs = (repl, stats_spec)
 
     @partial(
         shard_map, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
         check_vma=False,
     )
-    def run(scm_l: ShardedCMProblem, lam_a, nu_a, *maybe_gops):
-        gl = None
-        if maybe_gops:
-            gl = jax.tree_util.tree_map(_strip, maybe_gops[0])
+    def run(scm_l: ShardedCMProblem, lam_a, nu_a):
         lp = cm_mod.CMProblem(
             R=scm_l.R, t=scm_l.t, intr=scm_l.intr,
             cam_fixed=scm_l.cam_fixed,
@@ -347,7 +261,7 @@ def solve_sharded_cm(
             camera_model=scm_l.camera_model, robust=scm_l.robust,
         )
         solved, stats = cm_lm_loop(
-            lp, config, lam_a, nu_a, gops=gl, axis_name=AXIS,
+            lp, config, lam_a, nu_a, axis_name=AXIS,
             cam_shards=len(mesh.devices.flat) if cam_axis else 0,
         )
         out = scm_l.replace(
@@ -358,8 +272,7 @@ def solve_sharded_cm(
 
     fn = jax.jit(run)
     _FN_CACHE[key] = fn
-    args = (scm, lam0, nu0) if sgops is None else (scm, lam0, nu0, sgops)
-    return fn(*args)
+    return fn(scm, lam0, nu0)
 
 
 def unshard_cm(scm: ShardedCMProblem, template: cm_mod.CMProblem):

@@ -1,7 +1,7 @@
 """Distributed Levenberg-Marquardt: point-sharded Schur BA under shard_map.
 
-The mapping demanded by BASELINE.json's north star: "point blocks eliminated
-chip-locally, the reduced camera system allreduced/solved over ICI", with
+The mapping BASELINE.json's north star asks for: point blocks eliminated
+device-locally, the reduced camera system allreduced and solved, with
 the whole LM loop (damping, gain-ratio trust region) on device and no host
 round-trips per iteration.
 
@@ -56,8 +56,8 @@ def _cost(
     lp: problem_mod.BundleProblem, obs_chunk: int = 0
 ) -> jnp.ndarray:
     """Chip-local robust cost; caller psums.  ``obs_chunk`` > 0 bounds the
-    per-chunk gather the same way as the single-chip pcg path (the plain
-    [Ml, 3, 3] rotation gather tiles 10x on TPU — scale.cost_scale)."""
+    per-chunk gather the same way as the single-device pcg path instead of
+    a plain [Ml, 3, 3] rotation gather (scale.cost_scale)."""
     if obs_chunk > 0:
         from pysfm_tpu.solver import scale as scale_mod
 
@@ -137,15 +137,10 @@ def solve_sharded(
             return jnp.logical_and(s[4] < n_it, jnp.logical_not(s[5]))
 
         use_cm = config.solver == "dense" and config.layout in ("cm", "auto")
-        use_pallas = config.jac_backend == "pallas" or (
-            config.jac_backend == "auto"
-            and jax.default_backend() == "tpu"
-            and sp.X.dtype == jnp.float32
-        )
 
         def body(s):
+            from pysfm_tpu.problem import cm
             from pysfm_tpu.solver import schur_cm
-            from pysfm_tpu.solver.kernels import pallas_proj
 
             spl, lam, nu, cost0, it, _, st = s
             lp = _local_problem(spl)
@@ -166,16 +161,7 @@ def solve_sharded(
                     cam_obs=lp.cam_obs, cam_obs_mask=lp.cam_obs_mask,
                 )
             elif use_cm:
-                if use_pallas:
-                    rt, Jct, Jpt, wt = (
-                        pallas_proj.residuals_and_jacobians_pallas_cm(lp)
-                    )
-                else:
-                    r, J_cam, J_pt, w = problem_mod.residuals_and_jacobians(lp)
-                    M = r.shape[0]
-                    rt, Jct, Jpt, wt = (
-                        r.T, J_cam.reshape(M, -1).T, J_pt.reshape(M, 6).T, w
-                    )
+                rt, Jct, Jpt, wt = cm.residuals_and_jacobians_rows(lp)
                 eqs = schur_cm.build_normal_equations_cm(
                     rt, Jct, Jpt, wt, lp.obs_cam, lp.pt_obs, lp.pt_obs_mask,
                     lp.n_cameras,

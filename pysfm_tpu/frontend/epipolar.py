@@ -4,7 +4,7 @@ Reference analog (SURVEY §2 "Epipolar geometry / two-view init"):
 fundamental/essential via normalized 8-point (SVD, rank-2 projection),
 decompose E into 4 (R, t) candidates, select by cheirality.  All functions
 are batched/vmap-friendly (the RANSAC loop evaluates thousands of
-hypotheses in parallel — SURVEY §3.2 TPU mapping).
+hypotheses in parallel — SURVEY §3.2).
 
 Convention: pinhole, x2^T E x1 = 0 with x = (xn, yn, 1) normalized coords;
 (R, t) maps camera-1 coordinates to camera-2: p2 = R p1 + t.

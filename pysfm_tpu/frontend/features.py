@@ -10,7 +10,7 @@ SURVEY §7 step 4 this is a self-contained detector + descriptor:
 - fixed-N ``top_k`` corner selection (static shapes; invalid corners are
   masked, never dropped),
 - descriptors = bias/gain-normalized intensity patches, giving cosine
-  similarity matching as one big MXU matmul (match.py).
+  similarity matching as one big matmul (match.py).
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def describe_patches(
     decorrelates NCC on fine texture far more than detection noise does.
 
     [N, (2r+1)^2], unit-norm rows; cosine similarity == normalized cross
-    correlation, so matching is a single [N1, D] x [D, N2] MXU matmul.
+    correlation, so matching is a single [N1, D] x [D, N2] matmul.
     """
     d = 2 * patch_radius + 1
     H, W = img.shape

@@ -1,7 +1,7 @@
-"""Descriptor matching — one MXU matmul + mutual-NN and ratio tests.
+"""Descriptor matching — one matmul + mutual-NN and ratio tests.
 
 Reference analog: SURVEY §2 "feature detection & matching" (descriptor
-correlation).  The similarity matrix ``d1 @ d2^T`` is the MXU-shaped core;
+correlation).  The similarity matrix ``d1 @ d2^T`` is the matmul core;
 Lowe's ratio test and the mutual-nearest-neighbour constraint run as
 elementwise selects on top.
 """
@@ -37,7 +37,11 @@ def match_descriptors(
     ``dist^2 = 2 - 2 sim``, so the test is
     ``(1 - sim_best) < ratio^2 * (1 - sim_second)``.
     """
-    sim = d1 @ d2.T                                     # [N1, N2] (MXU)
+    # Default precision on purpose: on a GPU this may run in TF32 (~3
+    # decimal digits).  The similarities only rank candidates for the
+    # ratio and mutual-NN tests; geometry is re-verified by RANSAC, so
+    # nothing here feeds optimizer state.
+    sim = d1 @ d2.T                                     # [N1, N2]
     if valid1 is not None:
         sim = jnp.where(valid1[:, None], sim, -1.0)
     if valid2 is not None:

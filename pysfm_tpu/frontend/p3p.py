@@ -4,11 +4,11 @@ The minimal resection solver for PnP-RANSAC: a 3-point sample keeps the
 all-inlier probability high at low inlier ratios where the 6-point DLT
 sample collapses (SURVEY §3.3 "RANSAC'd PnP").
 
-TPU-native design: the Grunert system is reduced to a single quartic whose
+Design: the Grunert system is reduced to a single quartic whose
 coefficients are built by static polynomial arithmetic, and the quartic is
 solved in closed form (Ferrari) with REAL elementwise ops only — no
-``eigvals`` and no complex transcendentals (both unsupported on the TPU
-backend), branch-free, fully ``vmap``-able across RANSAC hypotheses.  Each
+``eigvals`` and no complex transcendentals, branch-free, fully
+``vmap``-able across RANSAC hypotheses.  Each
 sample yields up to 4 candidate poses; invalid candidates come back as NaN
 and are discarded by scoring.
 """
@@ -28,8 +28,8 @@ def solve_quartic(coeffs: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 
     ``coeffs = [c4, c3, c2, c1, c0]`` real; returns ``(roots[4], valid[4])``
     where invalid slots mark complex-conjugate pairs (their values are
-    meaningless).  Entirely real arithmetic — the TPU backend has no complex
-    transcendentals — with the resolvent cubic split into the real-Cardano
+    meaningless).  Entirely real arithmetic — no complex transcendentals —
+    with the resolvent cubic split into the real-Cardano
     (disc >= 0) and trigonometric (disc < 0, three real roots) branches,
     both evaluated and selected branch-free.  Roots are polished with three
     Newton steps on the original quartic, which also stabilizes f32.

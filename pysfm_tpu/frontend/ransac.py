@@ -1,7 +1,7 @@
 """Batched RANSAC — all hypotheses fitted and scored in parallel.
 
 Reference analog (SURVEY §2 "RANSAC"): a generic sequential
-hypothesize-and-verify loop.  TPU mapping (SURVEY §3.2): sample all N
+hypothesize-and-verify loop.  Here (SURVEY §3.2): sample all N
 minimal sets at once, ``vmap`` the fit and the scoring, ``argmax`` the
 inlier counts — no sequential loop, one fused device program.
 """

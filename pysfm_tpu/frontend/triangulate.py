@@ -2,7 +2,7 @@
 
 Reference analog (SURVEY §2 "Triangulation"): initialize 3-D points from
 >= 2 posed views via linear least squares on the cross-product constraints.
-TPU design: instead of per-point SVDs of stacked [2V,4] systems, we solve
+Design: instead of per-point SVDs of stacked [2V,4] systems, we solve
 the inhomogeneous 3x3 normal equations with the closed-form batched inverse
 (points at infinity are not a target of the reference either), vmapped over
 points with a visibility mask — static shapes, no data-dependent loops.

@@ -5,7 +5,7 @@ Reference analog (SURVEY §2 "Bundle / measurement model"): projection
 (dw, dt[, intrinsics]) and the point.  The reference evaluates these in a
 per-measurement Python loop; here every function is written point-wise and
 meant to be ``vmap``-ed / broadcast over the observation axis so XLA lowers
-it to a handful of fused elementwise kernels (SURVEY §3.1 TPU mapping).
+it to a handful of fused elementwise kernels (SURVEY §3.1).
 
 Camera models (static choice per problem, SURVEY §7):
 

@@ -1,6 +1,6 @@
 """SO(3) — rotation group operations, batched and differentiable.
 
-TPU-native replacement for the reference's Rodrigues/axis-angle helpers
+Batched replacement for the reference's Rodrigues/axis-angle helpers
 (SURVEY §2 "Rotation / Lie algebra": SO(3) exp/log, small-angle safe, used
 for minimal 3-param rotation updates ``R <- exp([w]x) @ R``).
 

@@ -7,7 +7,7 @@
 // ASCII doubles) through Python's str.split() costs seconds and a 3x memory
 // blow-up, while this single-pass strtod loop runs at memory bandwidth.
 //
-// Exposed via ctypes (pysfm_tpu/io/native.py) — no pybind11 in this image.
+// Exposed via ctypes (pysfm_tpu/io/native.py) — no pybind11 dependency.
 // Build: g++ -O3 -march=native -shared -fPIC fast_parse.cpp -o libpysfm_io.so
 
 #include <cstdint>
@@ -45,8 +45,8 @@ int64_t pysfm_parse_doubles(const char* buf, int64_t len, double* out,
 // observation lines "cam pt u v\n" followed by n_vals values one per line
 // at %.17g (round-trip precision).  Returns bytes written, or -1 if cap is
 // too small.  The write-side counterpart of pysfm_parse_doubles: the pure
-// Python f-string loop measured 416 s for a 38 MB file (IO_SCALE_r04);
-// this snprintf loop runs in well under a second.
+// Python f-string loop took minutes for a 38 MB file; this snprintf loop
+// runs in well under a second.
 int64_t pysfm_format_bal(const int32_t* obs_cam, const int32_t* obs_pt,
                          const double* uv, int64_t n_obs,
                          const double* vals, int64_t n_vals,

@@ -65,7 +65,7 @@ def save_checkpoint(path: str, ckpt: SolverCheckpoint) -> None:
         np.savez_compressed(f, **arrays)
     # Data first, sidecar last: the .json rename is the commit marker, so a
     # crash between the two renames can never leave a fresh sidecar pointing
-    # at a stale or missing .npz (ADVICE r4).
+    # at a stale or missing .npz.
     os.replace(tmp, path)
     with open(path + ".json.tmp", "w") as f:
         json.dump(meta, f)
@@ -133,7 +133,7 @@ def save_checkpoint_cm(
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
-    # npz first, .json sidecar last (the commit marker — ADVICE r4).
+    # npz first, .json sidecar last (the commit marker).
     os.replace(tmp, path)
     with open(path + ".json.tmp", "w") as f:
         json.dump(meta, f)
@@ -144,8 +144,7 @@ def load_checkpoint_cm(path: str):
     """Load a CM checkpoint; returns ``(CMProblem, lam, nu, iteration)``.
 
     Arrays come back host-resident; the first ``solve`` call device-puts
-    them (or build grouped ops first — the grouped layout is a pure
-    function of (obs_cam, obs_pt), so it needs no checkpoint state)."""
+    them."""
     import jax.numpy as jnp
 
     from pysfm_tpu.problem.cm import CMProblem
@@ -194,8 +193,7 @@ def _collect_shards(x):
 def _check_shard_layout(name, starts, sizes, starts0, sizes0):
     """All sharded fields of one checkpoint part must share the first
     field's (starts, sizes) layout — load applies that single layout to
-    every field, so mixed placement would be silently mis-assembled
-    (ADVICE r4)."""
+    every field, so mixed placement would be silently mis-assembled."""
     if not (
         np.array_equal(starts, starts0) and np.array_equal(sizes, sizes0)
     ):
@@ -211,7 +209,7 @@ def _check_shard_coverage(path, n, covered):
     """Raise unless the union of all loaded part ranges is [0, n): a
     missing or short part (e.g. a host crashed before writing its file —
     the exact failure-recovery scenario) must be a loud error, not
-    silently zero-filled rows (ADVICE r4 medium)."""
+    silently zero-filled rows."""
     if not covered.all():
         missing = np.flatnonzero(~covered)
         lo, hi = int(missing[0]), int(missing[-1])
@@ -270,7 +268,7 @@ def save_checkpoint_sharded(
     tmp = part + ".tmp"
     with open(tmp, "wb") as f:
         np.savez_compressed(f, **arrays)
-    # npz first, .json sidecar last (the commit marker — ADVICE r4).
+    # npz first, .json sidecar last (the commit marker).
     os.replace(tmp, part)
     with open(part + ".json.tmp", "w") as f:
         json.dump(meta, f)
@@ -347,9 +345,7 @@ def save_checkpoint_sharded_cm(
     mid-solve — the distributed-flagship analog of
     :func:`save_checkpoint_sharded`.  Each process writes ONE part file
     with only its addressable shards plus the replicated camera state;
-    atomic via tmp+rename.  The grouped kernel streams are NOT saved:
-    they are a pure function of (obs_cam, obs_pt) and are rebuilt with
-    :func:`pysfm_tpu.dist.shard_cm_problem` machinery on resume.
+    atomic via tmp+rename.
 
     Returns the part path written by this process."""
     import jax
@@ -382,7 +378,7 @@ def save_checkpoint_sharded_cm(
     tmp = part + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
-    # npz first, .json sidecar last (the commit marker — ADVICE r4).
+    # npz first, .json sidecar last (the commit marker).
     os.replace(tmp, part)
     with open(part + ".json.tmp", "w") as f:
         json.dump(meta, f)
@@ -393,8 +389,8 @@ def save_checkpoint_sharded_cm(
 def load_checkpoint_sharded_cm(path: str):
     """Reassemble a sharded CM checkpoint from all parts at ``path.p*``;
     returns ``(ShardedCMProblem, lam, nu, iteration)`` host-resident.
-    Re-place with :func:`pysfm_tpu.dist.device_put_sharded_cm` and
-    rebuild the grouped streams before resuming the kernel path."""
+    Re-place with :func:`pysfm_tpu.dist.device_put_sharded_cm` before
+    resuming."""
     import glob as _glob
 
     from pysfm_tpu.dist.sharded_cm import ShardedCMProblem

@@ -1,37 +1,57 @@
 """ctypes bindings for the native I/O tier (see _native/fast_parse.cpp).
 
-Builds the shared library on first use with the container's g++ (cached
-next to the source); every entry point has a NumPy fallback so the
-framework works without a toolchain.  pybind11 is not in this image, hence
-ctypes (task environment note).
+The shared library is built from source on first use with the system's
+g++ into ``_native/build/`` (ignored by git), under a name that carries a
+hash of ``fast_parse.cpp``: a missing library, or one built from a
+different source, is rebuilt.  Every entry point has a NumPy fallback so
+the framework works without a toolchain.  pybind11 is not a dependency,
+hence ctypes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
 
 _DIR = os.path.join(os.path.dirname(__file__), "_native")
 _SRC = os.path.join(_DIR, "fast_parse.cpp")
-_LIB = os.path.join(_DIR, "libpysfm_io.so")
+BUILD_DIR = os.path.join(_DIR, "build")
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
 
-def _build() -> bool:
+def lib_path() -> str:
+    """Where the library built from the current source lives."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libpysfm_io-{digest}.so")
+
+
+def _build(out: str) -> bool:
+    """Compile to a temporary name, then rename: concurrent processes
+    never load a half-written library."""
+    tmp = None
     try:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", _LIB],
+            ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", tmp],
             check=True, capture_output=True, timeout=120,
         )
+        os.replace(tmp, out)
         return True
     except Exception:
+        if tmp is not None and os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 
@@ -42,14 +62,11 @@ def _load():
         if _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB) or (
-            os.path.exists(_SRC)
-            and os.path.getmtime(_SRC) > os.path.getmtime(_LIB)
-        ):
-            if not _build():
-                return None
+        path = lib_path()
+        if not os.path.exists(path) and not _build(path):
+            return None
         try:
-            lib = ctypes.CDLL(_LIB)
+            lib = ctypes.CDLL(path)
             lib.pysfm_parse_doubles.restype = ctypes.c_int64
             lib.pysfm_parse_doubles.argtypes = [
                 ctypes.c_char_p, ctypes.c_int64,

@@ -1,27 +1,22 @@
 """Component-major (CM) problem layout — the BAL/Venice-scale fast path.
 
-Why this exists (measured on v5e, see solver/scale.py's layout rule): the
-TPU tiles the two minor dims of every HBM buffer to an (8, 128) f32 vreg,
-so any array whose trailing axis is small pays enormous padding once the
-leading axis is observation- or point-sized:
-
-- ``X [1M, 3]``        -> tiles as [1M, 128]:     512 MB for 12 MB payload
-- ``obs_uv [5M, 2]``   -> tiles as [5M, 128]:     2.6 GB for 40 MB
-- ``pt_obs [1M, 12]``  -> tiles as [1M, 128]:     512 MB for 48 MB
-- ``R[obs_cam] [m,3,3]`` gather -> [m, 8, 128]:   2.1 GB per 512k chunk
+Why this exists (see solver/scale.py's layout rule): an array whose
+trailing axis is small (``X [P, 3]``, ``obs_uv [M, 2]``, a gathered
+``R[obs_cam] [m, 3, 3]``) interleaves its few components with the
+observation or point axis, so every elementwise pass over one component
+reads strided memory.
 
 :class:`CMProblem` stores every observation/point-sized quantity with the
 big axis MINOR (component-major): points as ``X3 [3, P]``, measurements as
 flat ``u [M]`` / ``v [M]`` vectors, the per-point visibility table
 transposed to ``[K, P]``.  Camera-sized arrays (C ~ 1e3) keep the standard
-layout — their padding is noise.  The companion projection/Jacobian math in
-this module is scalar-unrolled over component rows (pure VPU work on [m]
+layout — they are small.  The companion projection/Jacobian math in this
+module is scalar-unrolled over component rows (elementwise work on [m]
 vectors), so the per-chunk working set of the normal-equation build is a
-couple of [D, m] row blocks instead of gigabytes of padded [m, 3, 3]
-gathers.
+couple of [D, m] row blocks instead of [m, 3, 3] gathers.
 
 Reference analog: none — the reference (pure NumPy, SURVEY §0/§2) has no
-layout tier; this is the TPU-native design SURVEY §7 step 6 calls for
+layout tier; this is the design SURVEY §7 step 6 calls for
 ("BAL-scale config with obs-chunking").
 """
 
@@ -31,10 +26,10 @@ from typing import List, Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from pysfm_tpu.geometry import projection
 from pysfm_tpu.problem import problem as problem_mod
+from pysfm_tpu.utils import struct
 
 
 @struct.dataclass
@@ -42,7 +37,7 @@ class CMProblem:
     """Bundle-adjustment state in component-major layout.
 
     Same information as :class:`~pysfm_tpu.problem.BundleProblem`, laid out
-    for the TPU memory system at BAL scale.  Consumed by the ``pcg`` solver
+    with the big axes minor for BAL scale.  Consumed by the ``pcg`` solver
     path (solver/scale.py + solver/pcg.py).
     """
 
@@ -152,8 +147,9 @@ def merge_params(
 # --------------------------------------------------------------------------
 
 
-def cam_table(cmp: CMProblem) -> jnp.ndarray:
-    """[Dc, C] packed camera parameters (see module docstring)."""
+def cam_table(cmp) -> jnp.ndarray:
+    """[Dc, C] packed camera parameters (see the comment above) of a
+    CMProblem or a BundleProblem (both carry R, t, intr, cam_fixed)."""
     C = cmp.n_cameras
     dt = cmp.dtype
     free = jnp.logical_not(cmp.cam_fixed).astype(dt)[None, :]     # [1, C]
@@ -284,6 +280,29 @@ def project_jac_cm(
             d0 * cols[2] + d1 * cols[5] + d2 * cols[8],
         ]
     return u, v, Jc, Jp
+
+
+def residuals_and_jacobians_rows(p: problem_mod.BundleProblem):
+    """:func:`pysfm_tpu.problem.problem.residuals_and_jacobians` emitted
+    directly in component-major rows, for the dense solver's cm layout
+    (solver/schur_cm.py): ``(rt [2, M], Jct [2*CP, M], Jpt [6, M],
+    wt [M])`` with Jct row ``i*CP + d`` and Jpt row ``i*3 + s``.  One
+    camera-table column gather and one point gather feed the unrolled
+    :func:`project_jac_cm`, so no ``[M, 2, CP]`` array is formed."""
+    from pysfm_tpu.problem import robust as robust_mod
+
+    cols = cam_table(p)[:, p.obs_cam]                        # [Dc, M]
+    Xg = p.X.T[:, p.obs_pt]                                  # [3, M]
+    u, v, Jc, Jp = project_jac_cm(p.camera_model, cols, Xg)
+    r0 = u - p.obs_uv[:, 0]
+    r1 = v - p.obs_uv[:, 1]
+    w = p.obs_w * robust_mod.weight(
+        p.robust, r0 * r0 + r1 * r1, p.robust_scale
+    )
+    return (
+        jnp.stack([r0, r1]), jnp.stack(Jc[0] + Jc[1]),
+        jnp.stack(Jp[0] + Jp[1]), w,
+    )
 
 
 def apply_update_cm(

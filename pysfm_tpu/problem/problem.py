@@ -1,6 +1,6 @@
 """Structure-of-arrays bundle-adjustment problem state.
 
-TPU-native replacement for the reference's object graph (SURVEY §2 "Bundle /
+Array-first replacement for the reference's object graph (SURVEY §2 "Bundle /
 measurement model": ``Camera``, ``Track``, ``Bundle`` with per-measurement
 Python loops).  Here the entire problem is a pytree of statically-shaped
 arrays:
@@ -15,7 +15,7 @@ arrays:
 
 Residual/Jacobian evaluation is one ``vmap``-free batched expression over
 the observation axis — XLA fuses it into a few elementwise kernels feeding
-gathers (SURVEY §3.1 TPU mapping of the reference's hot loops).
+gathers (SURVEY §3.1, the reference's hot loops).
 """
 
 from __future__ import annotations
@@ -24,10 +24,10 @@ from typing import Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from pysfm_tpu.geometry import projection
 from pysfm_tpu.problem import robust
+from pysfm_tpu.utils import struct
 
 
 @struct.dataclass
@@ -49,8 +49,8 @@ class BundleProblem:
     pt_obs: jnp.ndarray       # [P, K] int32 indices into obs arrays
     pt_obs_mask: jnp.ndarray  # [P, K] bool
     # Per-camera padded observation table: turns the camera-side
-    # normal-equation accumulation into gathers + MXU contractions
-    # (TPU scatter-adds serialize — measured 25 ms/iter at 164k obs).
+    # normal-equation accumulation into gathers + contractions instead of
+    # scatter-adds.
     cam_obs: jnp.ndarray       # [C, Kc] int32 indices into obs arrays
     cam_obs_mask: jnp.ndarray  # [C, Kc] bool
     # Gauge fixing: cameras whose tangent update is frozen (SURVEY §7).

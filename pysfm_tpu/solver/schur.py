@@ -1,4 +1,4 @@
-"""Block normal equations + Schur-complement reduction, batched for TPU.
+"""Block normal equations + Schur-complement reduction, batched.
 
 Reference analog (SURVEY §2 "Bundle adjuster (LM + Schur)", §3.1): build
 block-sparse normal equations (per-camera blocks Hcc, per-point 3x3 blocks
@@ -7,13 +7,13 @@ diagonals, eliminate points via the Schur complement
 ``S = Hcc - Hcp Hpp^-1 Hcp^T``, solve the reduced camera system, and
 back-substitute the point updates.
 
-TPU design (SURVEY §3.1 "TPU mapping", §7):
+Design (SURVEY §3.1, §7):
 
 - Per-observation blocks are built in one batched expression and reduced
   with ``segment_sum`` — no Python loops over measurements.
 - Hpp inversion is a closed-form batched 3x3 adjugate (no LAPACK calls).
 - The reduced camera matrix S is assembled with a single dense matmul over
-  a scattered ``[P, C*CP, 3]`` operand ("dense-W" regime, MXU-friendly) for
+  a scattered ``[P, C*CP, 3]`` operand ("dense-W" regime) for
   small/medium camera counts, or matrix-free via PCG for large ones
   (:mod:`pysfm_tpu.solver.pcg`).
 - Zero diagonal blocks (gauge-fixed cameras, padding points) are filled
@@ -62,10 +62,9 @@ def build_normal_equations(
     Two regimes:
 
     - With the padded per-point/per-camera observation tables: each block
-      sum is a gather of the relevant J rows followed by one batched MXU
+      sum is a gather of the relevant J rows followed by one batched
       contraction — no scatter, no materialized per-observation [CP, CP]
-      blocks.  This is the TPU-native path (scatter-add segment_sums
-      measured ~25 ms/iter at 164k obs on v5e; this path is ~1 ms).
+      blocks.
     - Without tables (e.g. chip-local shards that don't carry them):
       ``segment_sum`` fallback, identical results.
     """
@@ -76,9 +75,8 @@ def build_normal_equations(
 
     if pt_obs is not None:
         # Camera side: C is small, so the segmented reduction is ONE dense
-        # [C, M] x [M, D] matmul against a one-hot selector — pure MXU, no
-        # scatter (segment_sum) and no tiny-row gather (both measured
-        # 14+ ms at 164k obs on v5e; this is <1 ms).
+        # [C, M] x [M, D] matmul against a one-hot selector — no scatter
+        # (segment_sum) and no tiny-row gather.
         M = J_cam.shape[0]
         onehot = (
             obs_cam[:, None] == jnp.arange(n_cameras, dtype=obs_cam.dtype)
@@ -117,7 +115,7 @@ def augment_block_diag(H: jnp.ndarray, lam: jnp.ndarray) -> jnp.ndarray:
     d = jnp.diagonal(H, axis1=-2, axis2=-1)
     fill = jnp.where(d == 0, jnp.ones_like(d), jnp.zeros_like(d))
     aug = lam * d + fill
-    # Diagonal embed via an eye mask (no scatter — TPU scatters serialize).
+    # Diagonal embed via an eye mask (no scatter).
     eye = jnp.eye(H.shape[-1], dtype=H.dtype)
     return H + aug[..., :, None] * eye
 
@@ -152,7 +150,7 @@ def inv3x3(A: jnp.ndarray) -> jnp.ndarray:
 def chol3x3(A: jnp.ndarray) -> jnp.ndarray:
     """Batched closed-form Cholesky of SPD 3x3 blocks: A = L L^T, L lower.
 
-    Elementwise (VPU) — no LAPACK, no tiny-matmul MXU padding."""
+    Elementwise — no LAPACK call, no tiny batched matmuls."""
     a00, a10, a20 = A[..., 0, 0], A[..., 1, 0], A[..., 2, 0]
     a11, a21, a22 = A[..., 1, 1], A[..., 2, 1], A[..., 2, 2]
     l00 = jnp.sqrt(a00)
@@ -206,10 +204,8 @@ def scatter_coupling_dense(
     50-camera configs); large problems use the matrix-free path.
 
     With the padded per-point table (``pt_obs``/``pt_obs_mask``) the
-    assembly is a batched one-hot matmul on the MXU — a scatter-add here
-    measured 15 ms/iteration on v5e (TPU scatters serialize), vs ~0.4 ms
-    for the gather + matmul formulation.  The scatter fallback remains for
-    callers without the table.
+    assembly is a batched one-hot matmul instead of a scatter-add.  The
+    scatter fallback remains for callers without the table.
     """
     M, CP, _ = B.shape
     if pt_obs is None:
@@ -245,12 +241,12 @@ def reduce_dense(
     pt_obs_mask: jnp.ndarray | None = None,
 ) -> SchurSystem:
     """Schur reduction, dense-W regime (SURVEY §3.1 HOT loop: per-point
-    3x3 inverse + outer products -> here one big MXU matmul).
+    3x3 inverse + outer products -> here one big matmul).
 
     With ``axis_name`` set (inside ``shard_map``), points and their
     observations are chip-local shards while cameras are replicated: the
     camera-sized quantities (Hcc, g_c, the partial reduced system S and its
-    rhs) are ``psum``'d over ICI while point-sized state never moves —
+    rhs) are ``psum``'d across the mesh while point-sized state never moves —
     SURVEY §2 "Point-sharded Schur elimination" / §5 long-context analog.
     """
     C, CP, _ = eqs.Hcc.shape
@@ -267,13 +263,11 @@ def reduce_dense(
     # so Hpp_inv = M^T M.  Whiten per-observation coupling blocks
     # E_m = B_m M_{p(m)}^T *before* the scatter; then
     #   S_outer = sum_p W_p Hpp_inv W_p^T = sum_p V_p V_p^T,  V = scatter(E).
-    # This removes the [P, C*CP, 3] x [P, 3, 3] "Y" batched matmul entirely
-    # (its inner dim 3 pads to the 128-lane MXU tile — measured 7 ms/iter at
-    # the 50-cam/10k-pt config vs ~0 for the elementwise whitening) and
-    # halves the dense-operand HBM traffic.
+    # This removes the [P, C*CP, 3] x [P, 3, 3] "Y" batched matmul (inner
+    # dimension 3) entirely and halves the dense-operand memory traffic.
     M3 = inv_lower3x3(chol3x3(Hpp_aug))                          # [P, 3, 3]
     # E = B @ M^T elementwise over observations (M gathered per obs as its
-    # 6 lower-tri components — no [M,3,3] tile padding).
+    # 6 lower-tri components — no [M, 3, 3] gather).
     m00 = M3[..., 0, 0][obs_pt][:, None]
     m10 = M3[..., 1, 0][obs_pt][:, None]
     m11 = M3[..., 1, 1][obs_pt][:, None]
@@ -295,9 +289,9 @@ def reduce_dense(
     )                                                            # [P, CCP, 3]
     u = xp.matvec(M3, eqs.g_p)                                   # [P, 3]
     # S = blockdiag(Hcc_aug) - sum_p V_p V_p^T : one [CCP, 3P] x [3P, CCP]
-    # contraction -> MXU.  The -VV^T part is a per-chip partial; one psum
-    # of the camera-sized S combines chips (the single ICI collective per
-    # Schur reduction, SURVEY §2 "Camera-replicated reduced solve").
+    # contraction.  The -VV^T part is a per-device partial; one psum of
+    # the camera-sized S combines devices (the single collective per Schur
+    # reduction, SURVEY §2 "Camera-replicated reduced solve").
     S = -xp.einsum("pas,pbs->ab", V, V)
     rhs_red = xp.einsum("pas,ps->a", V, u)
     if axis_name is not None:

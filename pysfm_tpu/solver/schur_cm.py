@@ -1,19 +1,17 @@
-"""Component-major normal equations + Schur reduction — the TPU fast path.
+"""Component-major normal equations + Schur reduction (the dense solver's
+default layout).
 
-Motivation (measured on v5e, 50 cams / 10k pts / 164k obs): the standard
-path's per-observation block arrays (``J_cam [M,2,CP]``, ``B [M,CP,3]``,
-``W/V [P,C*CP,3]``) tile their minor dims to the (8, 128) TPU vreg, an
-~10-85x memory amplification that made every stage of the LM iteration
-memory-layout-bound (~28 ms/iter, <2% of roofline).  Here every
-per-observation quantity is a **component-major row** — a ``[D, M]`` array
-with observations riding the 128-wide lane dimension — so all elementwise
-math runs on dense tiles, and the only big contractions are clean 2-D
-matmuls:
+The standard path's per-observation block arrays (``J_cam [M,2,CP]``,
+``B [M,CP,3]``, ``W/V [P,C*CP,3]``) interleave tiny component dimensions
+with the observation axis.  Here every per-observation quantity is a
+**component-major row** — a ``[D, M]`` array with observations on the
+minor axis — so all elementwise math reads and writes contiguous rows, and
+the only big contractions are clean 2-D matmuls:
 
-- camera-side reduction: ``[D, M] @ [M, C]`` one-hot matmul (MXU),
+- camera-side reduction: ``[D, M] @ [M, C]`` one-hot matmul,
 - point-side reduction: per-component 1-D gathers via the padded ``pt_obs``
   table + a K-axis sum,
-- Schur outer product: ``S = Vr^T Vr`` with ``Vr [3P, C*CP]`` (MXU).
+- Schur outer product: ``S = Vr^T Vr`` with ``Vr [3P, C*CP]``.
 
 The math is identical to :mod:`pysfm_tpu.solver.schur` (whitened
 elimination: damped ``Hpp = L L^T``, ``M = L^{-1}``, ``V = W M^T``,
@@ -70,7 +68,7 @@ def build_normal_equations_cm(
     wr0 = rt[0:1] * w
     wr1 = rt[1:2] * w
 
-    # Camera-side rows -> one [rows, M] @ [M, C] MXU matmul.
+    # Camera-side rows -> one [rows, M] @ [M, C] matmul.
     # rows: g_c (CP), Hcc lower triangle (CP*(CP+1)/2).
     rows = []
     for d in range(cp):
@@ -94,11 +92,10 @@ def build_normal_equations_cm(
         if d != e:
             Hcc = Hcc.at[:, e, d].set(blk)
 
-    # Point-side rows + coupling blocks -> ONE batched grid gather.  Nine
-    # separate 1-D gathers measured 2.2 ms EACH on v5e (TPU gathers have a
-    # large fixed cost); one [M, 9 + 3*CP] row gather through the pt_obs
-    # table is ~1 ms total and leaves the coupling blocks resident in the
-    # point grid where the Schur assembly needs them.
+    # Point-side rows + coupling blocks -> ONE batched grid gather through
+    # the pt_obs table instead of one per row; it leaves the coupling
+    # blocks resident in the point grid where the Schur assembly needs
+    # them.
     maskf = pt_obs_mask.astype(Jct.dtype)                      # [P, K]
     prows = [
         (Jpt[a : a + 1] * Jpt[b : b + 1]
@@ -251,7 +248,7 @@ def back_substitute_cm(system: SchurSystemCM, dc: jnp.ndarray) -> jnp.ndarray:
     """dp = -M^T (u + V^T dc); returns [3, P] component-major."""
     # dc arrives [C, CP] standard; permute to the Vr column order (d, c).
     dc_perm = dc.T.reshape(-1)                                  # [(d,c)]
-    Vt = (system.Vr @ dc_perm).reshape(-1, 3).T                 # [3, P]
+    Vt = xp.matmul(system.Vr, dc_perm).reshape(-1, 3).T        # [3, P]
     x0 = system.u[0] + Vt[0]
     x1 = system.u[1] + Vt[1]
     x2 = system.u[2] + Vt[2]

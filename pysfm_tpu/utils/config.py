@@ -26,7 +26,7 @@ class LMConfig:
     tol_cost_rel: float = 1e-12
     tol_step: float = 1e-12
     # Re-orthonormalize rotations every k accepted steps (0 = never);
-    # fights f32 drift of the multiplicative updates on TPU.
+    # fights f32 drift of the multiplicative rotation updates.
     renormalize_every: int = 0
     # Reduced-camera-system solver: "dense" materializes the [C*CP, C*CP]
     # Schur complement via the dense-W operand (small/medium C), "pcg" runs
@@ -41,13 +41,8 @@ class LMConfig:
     # via a sequential lax.map (SURVEY §5 "obs-chunked accumulation") so
     # BAL/Venice-scale problems never materialize [M, ...] Jacobians.
     obs_chunk: int = 0
-    # Residual/Jacobian/robust-weight build backend: "jax" (XLA fusions),
-    # "pallas" (native-tier fused kernel, TPU f32 only — SURVEY §2 "Pallas
-    # kernels"), or "auto" (pallas iff running on TPU in f32).
-    jac_backend: str = "auto"
     # Solver data layout: "std" ([M, 2, CP]-style block arrays), "cm"
-    # (component-major [D, M] rows — the TPU fast path, see
-    # solver/schur_cm.py), or "auto" (cm for the dense solver, std for pcg).
+    # (component-major [D, M] rows, see solver/schur_cm.py), or "auto" (cm for the dense solver, std for pcg).
     layout: str = "auto"
     # Warm-start CG with the previous LM iteration's camera step (pcg
     # solver only).  The reduced system changes between iterations only
@@ -64,7 +59,7 @@ class LMConfig:
     # gradient stalls, with a 4x tightening after a rejected step (an
     # inexact step is a plausible cause of the rejection).  This spends
     # CG iterations where they buy cost reduction instead of a fixed
-    # budget per LM iteration (VERDICT r4 next-round #1).
+    # budget per LM iteration.
     cg_forcing: str = "fixed"
     cg_tol_max: float = 0.3
     # Quadratic-model stagnation termination for CG (0 = off): stop at CG
@@ -77,22 +72,34 @@ class LMConfig:
     # Reuse the linearization across rejected steps (pcg solver only).
     # A rejected LM step leaves the parameters unchanged, so the normal
     # equations and coupling rows of the NEXT iteration are bitwise the
-    # ones just computed; rebuilding them (the single most expensive
-    # non-CG stage — ~31 ms/iter at Venice scale) buys nothing.  The loop
-    # carries (eqs, b_rows) in the while_loop state and a lax.cond skips
-    # the rebuild after a reject.  Within one executable the reuse is
-    # exact (the rebuild is deterministic, so the carried values ARE what
-    # a rebuild would produce); flipping this flag recompiles, and the
-    # two TPU executables can differ by f32 fusion rounding (measured:
-    # identical cost curves for 16/18 Venice iterations, then one
-    # accept-threshold tie; final costs within 5 ulps — see
-    # VENICE_REUSE_r05.json).  On CPU the on/off trajectories are
-    # bitwise equal (tests/test_pcg.py).  Cost: the carried buffers live
-    # across iterations (~0.5 GB at 5M obs, vs a transient of the same
-    # size the rebuild allocates anyway).
+    # ones just computed; rebuilding them (the most expensive non-CG
+    # stage) buys nothing.  The loop carries the normal equations in the
+    # while_loop state and a lax.cond skips the rebuild after a reject.
+    # Within one executable the reuse is exact (the rebuild is
+    # deterministic, so the carried values ARE what a rebuild would
+    # produce); flipping this flag recompiles, and two executables can
+    # differ by f32 fusion rounding, which can flip an accept-threshold
+    # tie.  On CPU the on/off trajectories are bitwise equal
+    # (tests/test_pcg.py).  Cost: the carried equations, including the
+    # [3*CP, M] coupling rows, stay live across iterations (~0.4 GB at
+    # 5M observations with the 6-dof pose model).
     reuse_linearization: bool = True
     # Power-series preconditioner terms (1 = exact block-Jacobi; m > 1
     # adds m-1 Neumann-series terms of S^-1 around its block diagonal at
     # one extra S-matvec per CG iteration per term — see
-    # solver/pcg.py _precond_power and the VENICE_r05 evaluation).
+    # solver/pcg.py _precond_power).
     cg_precond_terms: int = 1
+
+
+def venice_pcg_config(max_iters: int, **overrides) -> LMConfig:
+    """The flagship BAL/Venice-scale settings: matrix-free PCG with the
+    adaptive (Eisenstat-Walker) forcing sequence, quadratic-model CG
+    termination and an obs-chunked build; tolerances zeroed so exactly
+    ``max_iters`` LM iterations run.  ``overrides`` replace any field."""
+    kw = dict(
+        max_iters=max_iters, tol_grad=0.0, tol_cost_rel=0.0, tol_step=0.0,
+        solver="pcg", cg_iters=25, cg_tol=1e-2, obs_chunk=1 << 19,
+        cg_forcing="ew", cg_q_tol=0.1,
+    )
+    kw.update(overrides)
+    return LMConfig(**kw)

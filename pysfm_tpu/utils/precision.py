@@ -1,17 +1,18 @@
-"""f32-exact contraction helpers for TPU.
+"""f32-exact contraction helpers.
 
-On TPU, XLA's DEFAULT matmul precision truncates f32 operands to bf16
-before the MXU pass (~0.4% relative error per product).  For the tiny
-geometry matmuls (3x3 rotation chains, 2x3 Jacobian chains) and the
-normal-equation / Schur accumulations, that error does not average out —
-it shifts the LM fixed point and breaks the BASELINE parity target
-(reprojection RMSE +-1e-6 vs the reference).  Measured on v5e:
-``A[5000,2,3] @ R[5000,3,3]`` default precision errs 4e-2 vs f64; HIGHEST
-errs 8e-7 (the f32 ideal).
+On an NVIDIA GPU since Ampere (the H100 included), XLA may run an f32
+matrix product or einsum on the tensor cores in TF32 at DEFAULT precision:
+each operand keeps a 10-bit mantissa (~3 decimal digits, about 5e-4
+relative per product).  For the small geometry contractions (3x3 rotation
+chains, 2x3 Jacobian chains) and the normal-equation / Schur / CG
+accumulations, that error does not average out — it moves the LM fixed
+point and the accept/reject decisions away from the f32 result the CPU and
+the f64 oracle define.
 
 Every contraction whose result feeds the optimizer state goes through
-these helpers.  Throughput-critical contractions where bf16 rounding is
-acceptable may use plain einsum deliberately — comment why at the site.
+these helpers, which pin HIGHEST (full f32).  A contraction where TF32
+rounding is acceptable may use plain einsum deliberately — say why at
+the call site.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Plays the role the reference played for parity checks (the reference mount
 was empty — SURVEY §0): a straightforward per-measurement NumPy
 implementation of robust LM bundle adjustment with Schur elimination, written
 independently of the jax code path (explicit Python loops, numeric-friendly
-formulas, ``np.linalg.solve``), against which the TPU solver must match
+formulas, ``np.linalg.solve``), against which the device solver must match
 final reprojection cost to ~1e-6 relative (BASELINE north-star).
 
 Deliberately mirrors the *mathematical contract* of the jax solver —

@@ -119,27 +119,22 @@ def test_solve_cm_matches_bundle_entry_and_dense():
     assert abs(float(st1.costs[-1]) - ref) <= 1e-6 * ref
 
 
-def test_solve_cm_drops_gops_for_f64():
-    """An f64 CM problem with gops runs the dtype-preserving XLA path
-    (the grouped kernels are f32-internal) — costs must match the plain
-    f64 solve exactly."""
-    import numpy as np
-
+@pytest.mark.parametrize("robust", ["gaussian", "huber", "cauchy"])
+@pytest.mark.parametrize("model", ["pose", "pose_k", "bal"])
+def test_residuals_and_jacobians_rows_match_std(model, robust):
+    """The dense solver's component-major build == the standard-layout
+    build, transposed (f64; outliers exercise the robust weights)."""
     from pysfm_tpu.pipeline import synthetic
-    from pysfm_tpu.solver import LMConfig
-    from pysfm_tpu.solver.lm import make_grouped_ops, solve
 
-    sc = synthetic.make_bal_scene(
-        6, 300, mean_track=4.0, max_track=8, noise_px=0.5, seed=3,
-        dtype=np.float64, with_truth=False, layout="cm",
-    )
-    cfg = LMConfig(
-        max_iters=3, tol_grad=0.0, tol_cost_rel=0.0, tol_step=0.0,
-        solver="pcg", cg_iters=15, cg_tol=1e-8,
-    )
-    p_ref, st_ref = solve(sc.problem, cfg)
-    gops = make_grouped_ops(sc.problem)
-    p_k, st_k = solve(sc.problem, cfg, gops=gops)
-    np.testing.assert_array_equal(
-        np.asarray(st_k.costs), np.asarray(st_ref.costs)
-    )
+    p = synthetic.make_scene(
+        5, 101, camera_model=model, noise_px=1.0, outlier_frac=0.1,
+        outlier_px=30.0, robust=robust, robust_scale=2.0, seed=3,
+    ).problem
+    r, J_cam, J_pt, w = problem_mod.residuals_and_jacobians(p)
+    rt, Jct, Jpt, wt = cm.residuals_and_jacobians_rows(p)
+    M = p.n_obs
+    for a, b in ((rt, r.T), (Jct, J_cam.reshape(M, -1).T),
+                 (Jpt, J_pt.reshape(M, 6).T), (wt, w)):
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-10, atol=1e-9
+        )

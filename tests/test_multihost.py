@@ -1,4 +1,4 @@
-"""Multi-host (DCN) execution-path tests (SURVEY §2 P4, §4).
+"""Multi-host execution-path tests (SURVEY §2 P4, §4).
 
 The real thing — ``jax.distributed`` across processes — exercised with two
 CPU subprocesses of 4 virtual devices each, exactly as a 2-host pod launch
@@ -72,7 +72,7 @@ def test_two_process_solve_matches_single(tmp_path):
         got = np.load(path + ".cm.npy")
         np.testing.assert_allclose(got, ref_cm, rtol=1e-8)
         # Camera-axis partition across the 2 processes (r5): the reduced
-        # camera system sharded over the DCN-spanning mesh axis still
+        # camera system sharded over the host-spanning mesh axis still
         # reproduces the single-process solve.
         got_cam = np.load(path + ".cam.npy")
         np.testing.assert_allclose(got_cam, ref_cm, rtol=1e-8)

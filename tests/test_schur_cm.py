@@ -1,8 +1,8 @@
 """Component-major solver path (solver/schur_cm.py) equality tests.
 
-The cm path is the TPU fast path; its math must match the standard-layout
-path (itself verified against the NumPy oracle and an explicit full-H
-solve) to f64 roundoff.
+The cm path is the dense solver's default layout; its math must match the
+standard-layout path (itself verified against the NumPy oracle and an
+explicit full-H solve) to f64 roundoff.
 """
 
 import jax.numpy as jnp

@@ -1,32 +1,24 @@
-"""Distributed CM/grouped-kernel flagship path (dist/sharded_cm.py).
+"""Distributed CM flagship path (dist/sharded_cm.py).
 
 SURVEY §4 invariant: the sharded Schur solve must equal the single-device
-solve on the same problem.  Three levels:
-
-1. sharded XLA-table CM solve (f64) == single-chip CM solve (tight tol);
-2. sharded grouped-KERNEL solve (f32, interpret mode on the CPU mesh)
-   == single-chip grouped-kernel solve;
-3. grouped pad-block invariance: padding a stream to a larger static block
-   count changes nothing (the shard_map uniform-shape mechanism).
+solve on the same problem: tightly in f64, and to f32 roundoff in f32
+(where only the cross-shard summation order differs).
 """
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
 
 from pysfm_tpu import dist
 from pysfm_tpu.pipeline import synthetic
-from pysfm_tpu.problem import grouped
 from pysfm_tpu.solver import LMConfig
-from pysfm_tpu.solver.kernels import pallas_spmv
-from pysfm_tpu.solver.lm import make_grouped_ops, solve
+from pysfm_tpu.solver.lm import solve
 
 
-def _bal_cm(dtype, seed=3, C=8, P=500):
+def _bal_cm(dtype, seed=3, C=8, P=500, camera_model="pose"):
     return synthetic.make_bal_scene(
         C, P, mean_track=4.0, max_track=8, noise_px=0.5, seed=seed,
         dtype=dtype, with_truth=False, layout="cm",
+        camera_model=camera_model,
     ).problem
 
 
@@ -39,56 +31,15 @@ def _cfg(**kw):
     return LMConfig(**base)
 
 
-def test_pad_blocks_invariance(rng):
-    """Appended inert pad blocks change no kernel output."""
-    cmp = _bal_cm(np.float32, seed=7, C=6, P=300)
-    oc = np.asarray(cmp.obs_cam)
-    op = np.asarray(cmp.obs_pt)
-    C, P = cmp.n_cameras, cmp.n_points
-    cp = cmp.cam_dof
-    meta0 = grouped.build_grouped(oc, op, C, P)
-    nb0 = meta0.block_group.shape[0]
-    meta1 = grouped.build_grouped(oc, op, C, P, pad_to_blocks=nb0 + 3)
-    assert meta1.block_group.shape[0] == nb0 + 3
-
-    def ops_for(meta):
-        nb = meta.block_group.shape[0]
-        b0 = jnp.zeros((3 * cp, nb, grouped.BLK // 128, 128), jnp.float32)
-        return pallas_spmv.device_grouped(
-            meta, b0, u=cmp.u, v=cmp.v, w=cmp.obs_w
-        )
-
-    from pysfm_tpu.problem import cm
-
-    ctab = cm.cam_table(cmp)
-    x = jnp.asarray(rng.standard_normal((cp, C)).astype(np.float32))
-    w3 = jnp.asarray(rng.standard_normal((3, P)).astype(np.float32))
-    outs = []
-    for meta in (meta0, meta1):
-        ops = ops_for(meta)
-        eqs, b_rows = pallas_spmv.build_eqs_grouped(
-            ops, ctab, cmp.X3, cmp.robust_scale,
-            cp=cp, model=cmp.camera_model, robust=cmp.robust,
-            n_cameras=C, n_points=P, interpret=True,
-        )
-        ops = ops.replace(b_rows=b_rows)
-        u = pallas_spmv.hcpT_x_grouped(ops, x, cp=cp, interpret=True)
-        y = pallas_spmv.hcp_w_grouped(ops, w3, C, cp=cp, interpret=True)
-        outs.append((eqs.Hcc, eqs.g_c, eqs.hpp6, eqs.g_p, u[:, :P], y))
-    for a, b in zip(outs[0], outs[1]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 @pytest.mark.parametrize("n_shards", [2, 4])
 def test_sharded_cm_xla_matches_single_f64(n_shards):
     """f64 XLA-table CM solve: sharded == single-chip (tight)."""
     cmp = _bal_cm(np.float64)
     cfg = _cfg()
     p_ref, st_ref = solve(cmp, cfg)
-    scm, _ = dist.shard_cm_problem(cmp, n_shards, with_grouped=False)
     mesh = dist.make_mesh(n_shards)
-    scm, _ = dist.device_put_sharded_cm(scm, None, mesh)
-    out, st = dist.solve_sharded_cm(scm, None, mesh, cfg)
+    scm = dist.device_put_sharded_cm(dist.shard_cm_problem(cmp, n_shards), mesh)
+    out, st = dist.solve_sharded_cm(scm, mesh, cfg)
     np.testing.assert_allclose(
         np.asarray(st.costs), np.asarray(st_ref.costs), rtol=1e-9
     )
@@ -101,20 +52,18 @@ def test_sharded_cm_xla_matches_single_f64(n_shards):
     )
 
 
-def test_sharded_cm_kernels_match_single():
-    """f32 grouped-kernel solve (interpret mode): sharded == single-chip.
-
-    The kernels compute identical per-observation products; only the
-    cross-shard summation order differs, so costs agree to f32 roundoff.
-    """
-    cmp = _bal_cm(np.float32)
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_sharded_cm_camera_axis_matches_single_f32(n_shards):
+    """f32 BAL-model solve with points AND cameras sharded: sharded ==
+    single-device.  The per-observation products are identical; only the
+    cross-shard summation order differs, so costs agree to f32 roundoff
+    (a one-device mesh runs the same collectives as identity routing)."""
+    cmp = _bal_cm(np.float32, camera_model="bal")
     cfg = _cfg(cg_tol=1e-6)
-    gops = make_grouped_ops(cmp)
-    p_ref, st_ref = solve(cmp, cfg, gops=gops)
-    scm, sgops = dist.shard_cm_problem(cmp, 4)
-    mesh = dist.make_mesh(4)
-    scm, sgops = dist.device_put_sharded_cm(scm, sgops, mesh)
-    out, st = dist.solve_sharded_cm(scm, sgops, mesh, cfg)
+    p_ref, st_ref = solve(cmp, cfg)
+    mesh = dist.make_mesh(n_shards)
+    scm = dist.device_put_sharded_cm(dist.shard_cm_problem(cmp, n_shards), mesh)
+    out, st = dist.solve_sharded_cm(scm, mesh, cfg, cam_axis=True)
     np.testing.assert_allclose(
         np.asarray(st.costs), np.asarray(st_ref.costs), rtol=1e-3
     )
@@ -133,10 +82,9 @@ def test_sharded_cm_ew_forcing_matches_single_f64(n_shards):
     cmp = _bal_cm(np.float64)
     cfg = _cfg(max_iters=5, cg_forcing="ew", cg_q_tol=0.1, cg_tol=1e-6)
     _, st_ref = solve(cmp, cfg)
-    scm, _ = dist.shard_cm_problem(cmp, n_shards, with_grouped=False)
     mesh = dist.make_mesh(n_shards)
-    scm, _ = dist.device_put_sharded_cm(scm, None, mesh)
-    _, st = dist.solve_sharded_cm(scm, None, mesh, cfg)
+    scm = dist.device_put_sharded_cm(dist.shard_cm_problem(cmp, n_shards), mesh)
+    _, st = dist.solve_sharded_cm(scm, mesh, cfg)
     np.testing.assert_allclose(
         np.asarray(st.costs), np.asarray(st_ref.costs), rtol=1e-9
     )
@@ -156,10 +104,9 @@ def test_sharded_cm_camera_axis_matches_single_f64(n_shards):
     cmp = _bal_cm(np.float64)
     cfg = _cfg(max_iters=4)
     _, st_ref = solve(cmp, cfg)
-    scm, _ = dist.shard_cm_problem(cmp, n_shards, with_grouped=False)
     mesh = dist.make_mesh(n_shards)
-    scm, _ = dist.device_put_sharded_cm(scm, None, mesh)
-    out, st = dist.solve_sharded_cm(scm, None, mesh, cfg, cam_axis=True)
+    scm = dist.device_put_sharded_cm(dist.shard_cm_problem(cmp, n_shards), mesh)
+    out, st = dist.solve_sharded_cm(scm, mesh, cfg, cam_axis=True)
     np.testing.assert_allclose(
         np.asarray(st.costs), np.asarray(st_ref.costs), rtol=1e-9
     )
@@ -168,31 +115,14 @@ def test_sharded_cm_camera_axis_matches_single_f64(n_shards):
     )
 
 
-def test_sharded_cm_camera_axis_kernels_match_single():
-    """Camera-axis partition composed with the grouped Pallas kernels
-    (interpret mode on the CPU mesh): the full flagship stack."""
-    cmp = _bal_cm(np.float32)
-    cfg = _cfg(cg_tol=1e-6)
-    gops = make_grouped_ops(cmp)
-    _, st_ref = solve(cmp, cfg, gops=gops)
-    scm, sgops = dist.shard_cm_problem(cmp, 4)
-    mesh = dist.make_mesh(4)
-    scm, sgops = dist.device_put_sharded_cm(scm, sgops, mesh)
-    _, st = dist.solve_sharded_cm(scm, sgops, mesh, cfg, cam_axis=True)
-    np.testing.assert_allclose(
-        np.asarray(st.costs), np.asarray(st_ref.costs), rtol=1e-3
-    )
-
-
 def test_sharded_cm_warm_start_lockstep():
     """CG warm start stays in lockstep across shards (replicated dc)."""
     cmp = _bal_cm(np.float64, seed=11, C=6, P=320)
     cfg = _cfg(max_iters=4, cg_warm_start=True)
     p_ref, st_ref = solve(cmp, cfg)
-    scm, _ = dist.shard_cm_problem(cmp, 2, with_grouped=False)
     mesh = dist.make_mesh(2)
-    scm, _ = dist.device_put_sharded_cm(scm, None, mesh)
-    _, st = dist.solve_sharded_cm(scm, None, mesh, cfg)
+    scm = dist.device_put_sharded_cm(dist.shard_cm_problem(cmp, 2), mesh)
+    _, st = dist.solve_sharded_cm(scm, mesh, cfg)
     np.testing.assert_allclose(
         np.asarray(st.costs), np.asarray(st_ref.costs), rtol=1e-9
     )
